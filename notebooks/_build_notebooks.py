@@ -12,7 +12,7 @@ ssrs_tpu counterparts from code so they stay in sync with the API:
 
 Run ``python notebooks/_build_notebooks.py [--no-exec]`` from the repo
 root. Execution is offline-safe (synthetic terrain, LOCAL WTK fixtures)
-and forces the CPU backend so it runs anywhere; on a TPU host remove the
+and forces the CPU backend so it runs anywhere; on a GPU host remove the
 platform line in each notebook's first cell.
 """
 
@@ -42,7 +42,7 @@ def code(src):
 
 PLATFORM = """
 # This demo runs anywhere: pin JAX to CPU so the notebook is portable.
-# On a TPU host, delete the next two lines — everything below is the
+# On a GPU host, delete the next two lines — everything below is the
 # same code (the kernels are platform-agnostic JAX).
 import jax
 jax.config.update('jax_platforms', 'cpu')
@@ -347,7 +347,7 @@ def build_modes_demo():
 
 Counterpart of the reference's `notebooks/ssrs_wy.ipynb` — one
 `Simulator` object per mode, same `Config` surface, same artifact and
-figure outputs. The engine underneath is the TPU-native one: fused
+figure outputs. The engine underneath is the JAX device engine: fused
 updraft kernels, the on-device multigrid potential solver, and the
 lockstep vectorized track simulation (100k+ simultaneous agents on one
 chip; a CPU run like this one uses the identical code path).
@@ -460,7 +460,7 @@ sim.plot_presence_map(show=True)
 
 A season is a distribution over datetimes (sampled between sunrise and
 sunset via the in-package NOAA solar calculator); each sampled datetime
-becomes a snapshot case, and the presence maps are averaged. On TPU the
+becomes a snapshot case, and the presence maps are averaged. On the device the
 cases advance **batched together** (`vmap` over the case axis) instead
 of serially.
 """),
@@ -509,7 +509,7 @@ case).
 This executed copy runs offline — synthetic terrain, LOCAL WTK fixture,
 no USWTDB — at 200 m resolution so it executes in minutes on CPU
 (the workshop used 100 m grids with live 3DEP terrain; change
-`RES = 100.` on a connected TPU host for the full-size replay). The
+`RES = 100.` on a GPU host for the full-size replay). The
 same five cases run as assertions in `tests/test_workshop_cases.py`.
 """),
         code(PLATFORM + """

@@ -50,12 +50,11 @@ def main():
             params, starts, key, updraft=conductivity, potential=pot,
             chunk=512, tail_bucket='auto')  # throughput mode
 
-    presence, steps = run(jax.random.key(0))  # compile + first run
-    np.asarray(presence)
+    jax.block_until_ready(run(jax.random.key(0)))  # compile + first run
     t0 = time.perf_counter()
-    presence, steps = run(jax.random.key(1))
-    useful = int(np.asarray(presence).astype(np.int64).sum()) - n_tracks
+    presence, steps = jax.block_until_ready(run(jax.random.key(1)))
     dt = time.perf_counter() - t0
+    useful = int(np.asarray(presence).astype(np.int64).sum()) - n_tracks
     print(f'1M tracks: {useful} useful steps in {dt:.1f}s = '
           f'{useful/dt/1e6:.1f}M useful steps/s '
           f'(scan steps {int(steps)})', flush=True)

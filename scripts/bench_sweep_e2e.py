@@ -4,8 +4,8 @@ Simulator path (BASELINE.json config 2 analog): one Simulator,
 updrafts -> thresholds -> batched vmapped potential solves
 (_prepare_potentials) -> interleaved multi-case compacting engine ->
 presence artifacts. This is the wall a reference user actually pays for
-a multi-case study; the component benches (bench_seasonal.py,
-exp_prep_e2e.py) time the engine and the prep in isolation.
+a multi-case study; the component bench (bench_seasonal.py) times the
+engine and the prep in isolation.
 
 Prints one JSON line: total wall, per-phase split (fields prep vs
 agent engine, from the run's phase timer), and useful agent-steps/s

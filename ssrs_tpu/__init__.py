@@ -1,14 +1,14 @@
-"""ssrs_tpu — a TPU-native stochastic soaring-raptor simulation framework.
+"""ssrs_tpu — a JAX stochastic soaring-raptor simulation framework.
 
 A from-scratch JAX/XLA re-design of the capabilities of NREL/SSRS
 (reference layer map in SURVEY.md): orographic/thermal updraft field
 kernels, a directional-potential solver (device multigrid + host direct),
 a lockstep vectorized agent movement model scaling to 100k+ simultaneous
-tracks on TPU, presence-density accumulation on device, and the
+tracks on an accelerator, presence-density accumulation on device, and the
 Config/Simulator user API with artifact-compatible outputs.
 
 Public surface mirrors the reference package exports
-(reference ssrs/__init__.py:1-10) plus the TPU-specific subpackages.
+(reference ssrs/__init__.py:1-10) plus the engine's own subpackages.
 """
 
 from .config import Config

@@ -72,7 +72,7 @@ def _cmd_info(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog='python -m ssrs_tpu',
-        description='TPU-native stochastic soaring-raptor simulator')
+        description='stochastic soaring-raptor simulator (JAX)')
     sub = parser.add_subparsers(dest='command', required=True)
 
     p_run = sub.add_parser('run', help='run a simulation from a JSON '

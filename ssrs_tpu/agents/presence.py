@@ -30,8 +30,9 @@ def circular_kernel(krad: int) -> np.ndarray:
 @partial(jax.jit, static_argnames=('krad',))
 def smooth_presence(count_mat: jax.Array, krad: int) -> jax.Array:
     """'same'-mode 2-D convolution with the circular kernel. Uses direct
-    convolution (maps onto the MXU); FFT would only win for kernels far
-    larger than the clip in ssrs/simulator.py:520 allows."""
+    convolution; FFT would only win for kernels far larger than the clip
+    in ssrs/simulator.py:520 allows. HIGHEST precision: counts above
+    2^11 are not exact in TF32, the GPU's default for f32 convolutions."""
     kern = jnp.asarray(circular_kernel(krad))
     x = count_mat.astype(jnp.float32)[None, None]
     k = kern[::-1, ::-1][None, None]  # convolution, not correlation

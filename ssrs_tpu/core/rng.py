@@ -2,12 +2,16 @@
 
 The reference relies on global ``np.random.seed`` calls
 (ssrs/simulator.py:50-52, 351-352) and unseeded worker processes, which are
-not reproducible across pool configurations. The TPU engine uses explicit
+not reproducible across pool configurations. This engine uses explicit
 ``jax.random`` keys with a documented fold-in hierarchy:
 
     root(seed) -> case -> realization -> {"potential","thermals","tracks"}
 
-so every artifact is bit-reproducible for a fixed device count and shape.
+so the random streams are fixed for a fixed device count and shape. On
+the CPU every artifact is then bit-reproducible; on the GPU the refined
+potential solve's floating-point sums are not (they vary in the last
+bits from run to run), and tracks sampled over a potential that differs
+in its last bits are a different sample of the same distribution.
 """
 
 from __future__ import annotations

@@ -9,9 +9,8 @@ predictors 2/3, multi-band, GDAL nodata, no Pillow bomb limits) and the
 georeferencing TIFF tags are parsed directly (ModelPixelScale 33550,
 ModelTiepoint 33922, GeoKeyDirectory 34735). Size policy: declared
 dimensions are checked against ``SSRS_TIFF_MAX_PIXELS`` (default 2e9)
-before allocation — see tiffcore for the rationale. Writing uses
-Pillow (single-band float32 strips; read back byte-exactly by
-tiffcore, round-trip-tested).
+before allocation — see tiffcore for the rationale. Writing goes
+through tiffcore's minimal float32 writer (round-trip-tested).
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .tiffcore import read_tiff
+from .tiffcore import read_tiff, write_tiff_f32
 
 MODEL_PIXEL_SCALE = 33550
 MODEL_TIEPOINT = 33922
@@ -93,17 +92,11 @@ def write_geotiff(fpath: str, data: np.ndarray,
                   epsg: int = 4326) -> None:
     """Write a float32 GeoTIFF (north-up) with geo tags readable by
     ``read_geotiff`` and by GDAL."""
-    from PIL import Image
-    from PIL.TiffImagePlugin import ImageFileDirectory_v2
-
     data = np.asarray(data, np.float32)
     nrow, ncol = data.shape
     dx = (bounds[2] - bounds[0]) / ncol
     dy = (bounds[3] - bounds[1]) / nrow
 
-    ifd = ImageFileDirectory_v2()
-    ifd[MODEL_PIXEL_SCALE] = (dx, dy, 0.0)
-    ifd[MODEL_TIEPOINT] = (0.0, 0.0, 0.0, bounds[0], bounds[3], 0.0)
     # GeoKeyDirectory: version 1.1.0, 3 keys
     model_type = 2 if epsg in (4326, 4269) else 1
     keys = [
@@ -113,10 +106,11 @@ def write_geotiff(fpath: str, data: np.ndarray,
         ((GEOGRAPHIC_TYPE if model_type == 2 else PROJECTED_CS_TYPE),
          0, 1, epsg),
     ]
-    ifd[GEO_KEY_DIRECTORY] = tuple(v for k in keys for v in k)
-
-    img = Image.fromarray(data, mode='F')
-    img.save(fpath, format='TIFF', tiffinfo=ifd)
+    write_tiff_f32(fpath, data, [
+        (MODEL_PIXEL_SCALE, 12, (dx, dy, 0.0)),
+        (MODEL_TIEPOINT, 12, (0.0, 0.0, 0.0, bounds[0], bounds[3], 0.0)),
+        (GEO_KEY_DIRECTORY, 3, [v for k in keys for v in k]),
+    ])
 
 
 def get_raster_bounds(fpath: str):

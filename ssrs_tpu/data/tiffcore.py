@@ -27,8 +27,10 @@ dimensions before any allocation, so a corrupt header cannot trigger
 an absurd allocation while a legitimate 60x80 km 1/3-arcsec mosaic
 (~ 2.6e8 pixels) decodes without ceremony.
 
-Writing stays in geotiff.py (Pillow emits well-formed single-band
-float32 strips, and round-trip tests pin byte-level compatibility).
+:func:`write_tiff_f32` is the matching minimal writer: one
+uncompressed single-band float32 strip plus caller-supplied tags (the
+GeoTIFF tags of geotiff.py), read back byte-exactly by
+:func:`read_tiff`.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ IMAGE_WIDTH = 256
 IMAGE_LENGTH = 257
 BITS_PER_SAMPLE = 258
 COMPRESSION = 259
+PHOTOMETRIC = 262
 STRIP_OFFSETS = 273
 SAMPLES_PER_PIXEL = 277
 ROWS_PER_STRIP = 278
@@ -410,3 +413,51 @@ def read_tiff(fpath) -> TiffImage:
             nodata = None
     data = out[:, :, 0] if samples == 1 else out
     return TiffImage(data=data, tags=tags, bigtiff=big, nodata=nodata)
+
+
+# field type -> struct letter for the types the writer emits
+_WRITE_FMT = {3: 'H', 4: 'I', 12: 'd'}
+
+
+def write_tiff_f32(fpath, data: np.ndarray, extra_tags=()) -> None:
+    """Write a 2-D float32 image as a little-endian classic TIFF: one
+    uncompressed strip, SampleFormat IEEE float, plus ``extra_tags`` given
+    as ``(tag, field_type, values)`` with field type 3 (SHORT), 4 (LONG)
+    or 12 (DOUBLE). File layout: header, pixels, out-of-line tag values,
+    then the single IFD."""
+    data = np.ascontiguousarray(data, dtype='<f4')
+    if data.ndim != 2:
+        raise ValueError(f'write_tiff_f32 takes a 2-D array, got '
+                         f'shape {data.shape}')
+    nrow, ncol = data.shape
+    pixels = data.tobytes()
+    tags = sorted([
+        (IMAGE_WIDTH, 4, [ncol]), (IMAGE_LENGTH, 4, [nrow]),
+        (BITS_PER_SAMPLE, 3, [32]), (COMPRESSION, 3, [1]),
+        (PHOTOMETRIC, 3, [1]), (STRIP_OFFSETS, 4, [8]),
+        (SAMPLES_PER_PIXEL, 3, [1]), (ROWS_PER_STRIP, 4, [nrow]),
+        (STRIP_BYTE_COUNTS, 4, [len(pixels)]), (SAMPLE_FORMAT, 3, [3]),
+        *((int(t), int(ft), list(v)) for t, ft, v in extra_tags)])
+    values_off = 8 + len(pixels)
+    values = bytearray()
+    entries = []
+    for tag, ftype, vals in tags:
+        payload = struct.pack(f'<{len(vals)}{_WRITE_FMT[ftype]}', *vals)
+        if len(payload) <= 4:
+            field_bytes = payload.ljust(4, b'\0')
+        else:
+            field_bytes = struct.pack('<I', values_off + len(values))
+            values += payload + b'\0' * (len(payload) % 2)
+        entries.append(struct.pack('<HHI', tag, ftype, len(vals))
+                       + field_bytes)
+    ifd_off = values_off + len(values)
+    if ifd_off + 6 + 12 * len(entries) >= 2 ** 32:
+        raise ValueError(f'{nrow}x{ncol} float32 image exceeds the 4 GB '
+                         'classic TIFF limit')
+    with open(fpath, 'wb') as fobj:
+        fobj.write(struct.pack('<2sHI', b'II', 42, ifd_off))
+        fobj.write(pixels)
+        fobj.write(bytes(values))
+        fobj.write(struct.pack('<H', len(entries)))
+        fobj.write(b''.join(entries))
+        fobj.write(struct.pack('<I', 0))

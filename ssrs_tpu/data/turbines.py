@@ -10,11 +10,12 @@ except, ssrs/turbines.py:72-76)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
-
-import pandas as pd
+from typing import TYPE_CHECKING, Optional, Tuple
 
 from .crs import transform_coordinates
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 class TurbinesUSWTB:
@@ -31,13 +32,16 @@ class TurbinesUSWTB:
                  print_verbose: bool = False,
                  dataframe: Optional[pd.DataFrame] = None):
         """``dataframe`` injects raw USWTDB-shaped data (offline fixtures);
-        otherwise the REST endpoint is queried."""
+        otherwise the REST endpoint is queried. pandas and requests are
+        imported only for that query: without them, as without a
+        network, there is no turbine data (``dframe`` is None)."""
         print('TurbinesUSWTB: Importing turbine data from USWTB..')
         if dataframe is not None:
             dfraw = dataframe
         else:
             try:
                 import io
+                import pandas as pd
                 import requests
                 resp = requests.get(self.url, timeout=(4, 120))
                 resp.raise_for_status()

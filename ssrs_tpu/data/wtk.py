@@ -14,12 +14,14 @@ import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
-from typing import List, Tuple, Union
+from typing import TYPE_CHECKING, List, Tuple, Union
 
 import numpy as np
-import pandas as pd
 
 from .wtksource import WtkSource
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 class WTK(WtkSource):
@@ -63,6 +65,7 @@ class WTK(WtkSource):
     def download_locations(self) -> None:
         """Scan the coordinates dataset for points inside the bounds
         (ssrs/wtk/wtk.py:73-96) and record which bounds produced the cache."""
+        import pandas as pd
         fpath = os.path.join(self.out_dir, 'wtk_locations.csv')
         with self.hsds.File(self.file_names[0], mode='r') as f_obj:
             lat_all = f_obj['coordinates'][:, 0]
@@ -104,6 +107,7 @@ class WTK(WtkSource):
     def get_locations(self) -> pd.DataFrame:
         """CSV-cached locations, invalidated when the requested bounds (or
         source) differ from the ones that produced the cache."""
+        import pandas as pd
         fpath = os.path.join(self.out_dir, 'wtk_locations.csv')
         try:
             if not self._cached_locations_valid():
@@ -155,6 +159,7 @@ class WTK(WtkSource):
                                     ) -> pd.DataFrame:
         """Cached read with index-consistency validation
         (ssrs/wtk/wtk.py:156-167)."""
+        import pandas as pd
         fpath = os.path.join(self.out_dir, self.get_filename(req_time))
         dfbase = self.get_locations()
         try:

@@ -3,7 +3,7 @@
 Reference semantics: ``deardoff_velocity_function`` (ssrs/layers.py:25-37),
 ``compute_potential_temperature`` (ssrs/layers.py:40-48),
 ``compute_thermal_updraft`` (ssrs/layers.py:51-60). All are pure
-elementwise VPU ops.
+elementwise ops.
 """
 
 from __future__ import annotations

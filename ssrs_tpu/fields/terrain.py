@@ -7,11 +7,8 @@ stencil naming ("upper left" = ``z[:-2, 2:]``), so dz_dx is the gradient
 along axis 0 and dz_dy along axis 1; we reproduce that exactly, border cells
 are zero (the reference writes NaN then ``nan_to_num``).
 
-TPU notes: this is a bandwidth-bound VPU stencil. XLA fuses the shifted
-reads into a single pass, which is already within ~2x of the HBM roofline
-(measured in docs/DESIGN.md); no hand-written kernel is needed here. The
-package's one opt-in Pallas kernel is the presence histogram
-(``ssrs_tpu.agents.pallas_hist``), not a terrain stencil.
+This is a bandwidth-bound elementwise stencil: XLA fuses the shifted
+reads into a single pass, and no hand-written kernel is used here.
 """
 
 from __future__ import annotations

@@ -43,7 +43,8 @@ def gaussian_filter(field: jax.Array, sigma: float = 4.0,
     dn = jax.lax.conv_dimension_numbers(x.shape, kr.shape,
                                         ('NCHW', 'OIHW', 'NCHW'))
     pad = (ksize - 1) // 2
-    # HIGHEST: XLA's fast conv paths are not bit-faithful for f32 taps
+    # HIGHEST: the GPU's default for f32 convolutions is TF32 (~3
+    # decimal digits), not faithful to the f32 taps
     x = jax.lax.conv_general_dilated(x, kr, (1, 1),
                                      [(pad, pad), (0, 0)], (1, 1), (1, 1), dn,
                                      precision=jax.lax.Precision.HIGHEST)

@@ -5,7 +5,7 @@ Reference semantics:
   w = max(min_val, speed * sin(slope) * max(0, cos(aspect - dirn))).
 - ``get_above_threshold_speed`` (ssrs/layers.py:171-185): a smooth blend
   below the threshold, implemented there with ``np.vectorize`` (a Python
-  per-element loop!); here it is a fused elementwise VPU kernel.
+  per-element loop!); here it is one fused elementwise kernel.
 
 All angles in degrees, matching the reference.
 """

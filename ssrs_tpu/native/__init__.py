@@ -1,6 +1,6 @@
 """Native (C++) host runtime pieces, loaded via ctypes.
 
-The TPU does the simulation; the host runtime around it has one hot
+The device does the simulation; the host runtime around it has one hot
 loop — reconstructing per-agent trajectories from the device's per-chunk
 emissions (``simulate_tracks_recorded``). ``TrackBuilder`` is its C++
 implementation: per-agent growable buffers appended in a single pass per

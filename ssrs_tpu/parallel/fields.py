@@ -1,18 +1,18 @@
-"""Spatially-sharded field computations: grids beyond one chip's HBM.
+"""Spatially-sharded field computations: grids beyond one device's memory.
 
 The agent loop shards AGENTS and replicates fields (parallel/mesh.py) —
 correct for reference-scale grids (<= a few hundred MB). Very large
 grids (8192²-class and beyond) instead shard the FIELD arrays by rows
 over a 1-D device mesh and let XLA's SPMD partitioner (GSPMD) insert
-the communication. This is the TPU-idiomatic division of labor: the
-kernels stay the single-device ones (pad-and-slice stencils,
-reduce_window transfers, tile-dictionary matmuls — lap.py, fields/),
+the communication. The kernels stay the single-device ones
+(pad-and-slice stencils, reduce_window transfers, tile-dictionary
+reductions — lap.py, fields/),
 and the partitioner turns row-sharded pad/slice into 1-row halo
 ``collective-permute``s, keeps tile matmuls device-local (tile rows
 align with row shards), and replicates only the small coarse levels.
 
-Measured on the 8-device virtual mesh (scripts/exp_shard_fields.py,
-512² hard field, full refined solve): 2519 collective-permutes (the
+Counted on the 8-device virtual CPU mesh (512² hard field, full
+refined solve): 2519 collective-permutes (the
 halos), 115 small all-reduces (GCR dots, deflation segsums), and only
 9 all-gathers, the largest an 8×8 routing array — no full-field
 gathers anywhere. The sharded solve returns the same answer as the
@@ -28,7 +28,7 @@ collective-size bound.
 Reference counterpart: none — the reference's SciPy/SuperLU solve
 (ssrs/movmodel.py:86-128) is single-host and its pool parallelism
 (ssrs/simulator.py:347-381) never splits a field. This removes the
-one-chip HBM ceiling as the scale limit (VERDICT r2 "What's missing"
+one-device memory ceiling as the scale limit (VERDICT r2 "What's missing"
 item 4).
 """
 

@@ -26,8 +26,8 @@ from .boundary import boundary_nodes
 SQRT2 = float(np.sqrt(2.0))
 
 # Measured cost anchors for the SuperLU solve on this class of system
-# (dense-speckle adversarial fields, scripts/exp_fallback_cost.py,
-# single-core host): (unknowns, wall seconds, peak RSS GB).
+# (dense-speckle adversarial fields, single-core host CPU):
+# (unknowns, wall seconds, peak RSS GB).
 #   512^2: 4.9 s / 0.94 GB;  1024^2: 41.8 s / 3.4 GB;
 #   2048^2: 364 s / 14.7 GB — wall ~ u^1.55, memory ~ u^1.1.
 # At 4096^2 (16.8M unknowns) scipy's SuperLU FAILS outright ("Not

@@ -1,10 +1,12 @@
 """Double-single (two-float) arithmetic on device.
 
-TPUs have no float64; a value is carried as an unevaluated sum
-``hi + lo`` of two float32s (~48 significant bits), using the classic
-error-free transformations (Dekker 1971, Knuth TAOCP 4.2.2). XLA obeys
-IEEE semantics for elementwise float ops (no unsafe reassociation), so
-the transformations hold on the VPU.
+A value is carried as an unevaluated sum ``hi + lo`` of two float32s
+(~48 significant bits), using the classic error-free transformations
+(Dekker 1971, Knuth TAOCP 4.2.2). They hold only if the compiler neither
+reassociates nor contracts a multiply and an add into one FMA in the
+wrong place; ``chip_smoke.py`` checks ``two_sum``, ``two_prod`` and
+``ds_mul_f32`` on the GPU against float64 on 10^6 random pairs
+(``tests/test_ds.py`` does the same on the CPU).
 
 Used by the directional-potential solver to evaluate residuals of the
 ill-conditioned (cond ~ 1e9-1e10) reference system without f32

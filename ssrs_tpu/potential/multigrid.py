@@ -1,8 +1,8 @@
 """Geometric multigrid for the directional-potential system.
 
 The reference factorizes the 300k x 300k sparse system with SuperLU on the
-host (ssrs/movmodel.py:113-121). A direct factorization does not map to the
-TPU; instead we solve the same row-normalized 9-point system
+host (ssrs/movmodel.py:113-121). Here a device solver handles the same
+row-normalized 9-point system
 
     L u = u - (1 - bmask) * (P u) = bmask * bvals
 
@@ -10,7 +10,7 @@ with a cell-centered geometric V-cycle (weighted-Jacobi smoothing, 2x2
 block-average restriction, piecewise-constant prolongation, rediscretized
 coarse operators from block-averaged conductivity) used either standalone or
 as a preconditioner for GMRES. Everything is shifted elementwise stencil
-arithmetic — VPU-friendly, no gathers, no dot-product breakdowns in f32
+arithmetic — no gathers, no dot-product breakdowns in f32
 (plain BiCGStab NaNs out on thresholded-updraft conductivity fields whose
 edge weights span 1e-8..1).
 """
@@ -34,8 +34,7 @@ class MGLevel(NamedTuple):
 
 
 def _block_sum(x: jax.Array) -> jax.Array:
-    """2x2/2 reduce_window — stride-2 slices lane-shuffle on TPU
-    (~200 ms at 16.8M cells, measured in scripts/exp_rp.py)."""
+    """2x2/2 block sum as one reduce_window."""
     return jax.lax.reduce_window(x, 0., jax.lax.add, (2, 2), (2, 2),
                                  'VALID')
 
@@ -75,8 +74,8 @@ def _prolong(e: jax.Array, fine_shape: Tuple[int, int]) -> jax.Array:
     f10 = (9. * c + 3. * down + 3. * left + dl) * (1. / 16.)
     f11 = (9. * c + 3. * down + 3. * right + dr) * (1. / 16.)
     m, n = e.shape
-    # interleave via 0/1 selector matmuls (MXU): the stack/transpose/
-    # reshape formulation interleaves the 128-lane minor axis
+    # interleave via 0/1 selector matmuls; the selectors are exact in
+    # TF32 but the f32 fields are not, so HIGHEST
     P = jax.lax.Precision.HIGHEST
 
     def sel(m2, mm, parity):

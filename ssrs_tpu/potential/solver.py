@@ -7,7 +7,7 @@ solve ``(I - P_ii) x = P_ib b`` with SuperLU. The assembly there is a
 Python loop over all nodes and edges; the solve is a host sparse direct
 factorization.
 
-TPU-native formulation: the operator ``P`` is nine shifted elementwise
+Device formulation: the operator ``P`` is nine shifted elementwise
 multiplies (a 9-point stencil) — no sparse matrix is ever materialized.
 With Dirichlet cells clamped, the full-grid linear operator
 

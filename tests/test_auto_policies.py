@@ -1,43 +1,74 @@
-"""Round-5 auto policies: weight-precision 'auto' tier (VERDICT r4
-item 4) and the fused-entry auto-pad (VERDICT r4 item 7)."""
+"""The engine's 'auto' policies and option validation: weight-table
+precision, presence accumulation and step engine."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from ssrs_tpu.agents.simulate import (FUSED_BLK, GATHER_VMEM_BUDGET,
-                                      TrackParams, prepare_starts,
-                                      prepared_weights,
+from ssrs_tpu.agents.simulate import (TrackParams, prepared_weights,
+                                      resolve_presence_impl,
+                                      resolve_step_impl,
                                       resolve_weight_dtype,
                                       simulate_presence)
 from ssrs_tpu.agents.moves import directional_probs
 
 
+def _p(**kw):
+    return TrackParams(grid_shape=(50, 60), move_dirn=0., nu=1.,
+                       memory_k=1, burnin=5, nsteps=100, **kw)
+
+
 def test_presence_matmul_area_policy():
-    """presence 'auto' picks the one-hot matmul by grid AREA (measured
-    ~1.1M-cell crossover, docs/DESIGN.md 'the presence-policy
-    boundaries, measured') — the old nrow+ncol<=4096 rule kept the
-    matmul all the way to 2048^2, a measured 1.3-2.6x per-step loss."""
-    from ssrs_tpu.agents.simulate import _presence_matmul_ok
-    assert _presence_matmul_ok((500, 600))
-    assert _presence_matmul_ok((1024, 1024))
-    assert not _presence_matmul_ok((1100, 1100))
-    assert not _presence_matmul_ok((1200, 1400))
-    # the old criterion's failure case: row+col == 4096 but 4.19M cells
-    assert not _presence_matmul_ok((2048, 2048))
-    # tall-thin grids with small area keep the matmul even at large
-    # row+col (the dimension the old rule punished for no reason)
-    assert _presence_matmul_ok((4000, 250))
+    """presence 'auto' is the scatter-add at every grid area (the GPU
+    timing in PERF.md found no area where the one-hot matmul wins);
+    explicit choices pass through."""
+    assert resolve_presence_impl('auto') == 'scatter'
+    for impl in ('matmul', 'scatter', 'none'):
+        assert resolve_presence_impl(impl) == impl
+
+
+@pytest.mark.parametrize('presence', ['auto', 'matmul'])
+def test_presence_paths_bit_identical(rng, presence):
+    """'auto' runs the scatter program, and the one-hot matmul gives
+    bit-identical counts: the sampled moves do not depend on how presence
+    is accumulated, and integer sums do not depend on their order."""
+    import jax
+    grid = (40, 48)
+    up = (0.5 + rng.random(grid)).astype(np.float32)
+    pot = (np.linspace(1000., 0., grid[0])[:, None]
+           * np.ones((1, grid[1]), np.float32))
+    starts = np.stack([rng.integers(3, 8, 500), rng.integers(10, 38, 500)],
+                      axis=1).astype(np.int32)
+    out = [np.asarray(simulate_presence(_p(presence_impl=impl)._replace(
+        grid_shape=grid, burnin=4), starts, jax.random.key(1),
+        updraft=jnp.asarray(up), potential=jnp.asarray(pot), chunk=32)[0])
+        for impl in (presence, 'scatter')]
+    np.testing.assert_array_equal(out[0], out[1])
 
 
 def test_step_impl_typo_raises():
     """A step_impl typo must raise, not silently downgrade to XLA."""
-    import pytest
-    from ssrs_tpu.agents.simulate import resolve_step_impl
-    p = TrackParams(grid_shape=(50, 60), move_dirn=0., nu=1.,
-                    memory_k=1, burnin=5, nsteps=100,
-                    step_impl='fuesd')
     with pytest.raises(ValueError, match='fuesd'):
-        resolve_step_impl(p, True)
+        resolve_step_impl(_p(step_impl='fuesd'))
+
+
+@pytest.mark.parametrize('impl', ['fused', 'fused-interpret'])
+def test_removed_fused_step_raises(impl):
+    """The fused step kernel is gone: asking for it raises a
+    ValueError that says so, from the resolver and from the step
+    builder the drivers call."""
+    from ssrs_tpu.agents.simulate import make_step_fn
+    with pytest.raises(ValueError, match='removed'):
+        resolve_step_impl(_p(step_impl=impl))
+    with pytest.raises(ValueError, match='removed'):
+        make_step_fn(_p(step_impl=impl), None,
+                     jnp.asarray(directional_probs(0.)),
+                     jnp.ones((9, 9), jnp.float32))
+
+
+@pytest.mark.parametrize('impl', ['auto', 'xla'])
+def test_step_impl_resolves_to_xla(impl):
+    assert resolve_step_impl(_p(step_impl=impl)) == 'xla'
 
 
 def test_steps_counter_saturates_at_cap(rng):
@@ -61,17 +92,11 @@ def test_steps_counter_saturates_at_cap(rng):
 
 
 def test_resolve_weight_dtype_policy():
-    # explicit tiers pass through at any size
-    assert resolve_weight_dtype('float32', (4096, 4096)) == 'float32'
-    assert resolve_weight_dtype('bfloat16', (16, 16)) == 'bfloat16'
-    # auto: f32 while the f32 table fits the measured gather budget
-    assert resolve_weight_dtype('auto', (100, 100)) == 'float32'
-    # the flagship 500x600 f32 table is 10.8 MB — past the budget
-    assert resolve_weight_dtype('auto', (500, 600)) == 'bfloat16'
-    # boundary: exactly at the budget stays f32
-    n = GATHER_VMEM_BUDGET // (9 * 4)
-    assert resolve_weight_dtype('auto', (1, n)) == 'float32'
-    assert resolve_weight_dtype('auto', (1, n + 1)) == 'bfloat16'
+    # explicit tiers pass through; auto is the reference's float32 at
+    # every grid (the bf16 table was not faster in the GPU step, PERF.md)
+    assert resolve_weight_dtype('float32') == 'float32'
+    assert resolve_weight_dtype('bfloat16') == 'bfloat16'
+    assert resolve_weight_dtype('auto') == 'float32'
 
 
 def test_prepared_weights_auto_resolves_by_grid(rng):
@@ -81,7 +106,9 @@ def test_prepared_weights_auto_resolves_by_grid(rng):
     assert prepared_weights(small, pot, dirp, 'auto').dtype == jnp.float32
     big = jnp.asarray(rng.random((500, 600), dtype=np.float32))
     potb = jnp.zeros((500, 600), jnp.float32)
-    assert prepared_weights(big, potb, dirp, 'auto').dtype == jnp.bfloat16
+    assert prepared_weights(big, potb, dirp, 'auto').dtype == jnp.float32
+    assert prepared_weights(big, potb, dirp,
+                            'bfloat16').dtype == jnp.bfloat16
 
 
 def test_prepared_weights_batch_matches_per_case(rng):
@@ -101,53 +128,3 @@ def test_prepared_weights_batch_matches_per_case(rng):
                                jnp.asarray(dirps[i]), 'float32')
         np.testing.assert_array_equal(np.asarray(batch[i]),
                                       np.asarray(one))
-
-
-def _odd_setup(rng, n=1000):
-    grid = (48, 56)
-    up = (0.5 + rng.random(grid)).astype(np.float32)
-    pot = (np.linspace(1000., 0., grid[0])[:, None]
-           * np.ones((1, grid[1]), np.float32))
-    starts = np.stack([rng.integers(3, 8, n), rng.integers(10, 46, n)],
-                      axis=1).astype(np.int32)
-    params = TrackParams(grid_shape=grid, move_dirn=0., nu=1.,
-                         memory_k=1, burnin=4, nsteps=96,
-                         weight_dtype='float32',
-                         step_impl='fused-interpret')
-    return params, up, pot, starts
-
-
-def test_simulate_presence_autopads_odd_n(rng):
-    """Odd-N through the jitted entry == manual prepare_starts padding
-    (bit-exact: identical padded shapes and key), i.e. the entry now
-    runs the fused engine instead of silently downgrading to XLA."""
-    import jax
-    params, up, pot, starts = _odd_setup(rng)
-    assert starts.shape[0] % FUSED_BLK != 0
-    key = jax.random.key(7)
-    p_auto, s_auto = simulate_presence(params, starts, key,
-                                       updraft=jnp.asarray(up),
-                                       potential=jnp.asarray(pot))
-    starts_p, valid = prepare_starts(params, starts)
-    assert starts_p.shape[0] % FUSED_BLK == 0
-    p_man, s_man = simulate_presence(params, jnp.asarray(starts_p), key,
-                                     updraft=jnp.asarray(up),
-                                     potential=jnp.asarray(pot),
-                                     valid=jnp.asarray(valid))
-    np.testing.assert_array_equal(np.asarray(p_auto), np.asarray(p_man))
-    assert int(s_auto) == int(s_man)
-
-
-def test_simulate_presence_autopad_slices_tracks(rng):
-    """record_tracks output comes back at the caller's N, not the
-    padded bucket."""
-    import jax
-    params, up, pot, starts = _odd_setup(rng, n=1100)
-    out = simulate_presence(params, starts, jax.random.key(3),
-                            updraft=jnp.asarray(up),
-                            potential=jnp.asarray(pot),
-                            record_tracks=True)
-    presence, steps, tracks, lengths = out
-    assert tracks.shape[1] == 1100
-    assert lengths.shape[0] == 1100
-    np.testing.assert_array_equal(np.asarray(tracks[0]), starts)

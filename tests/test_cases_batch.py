@@ -127,7 +127,7 @@ def test_cases_compacting_matches_single(rng):
 
 
 def test_cases_compacting_device_spread_bit_identical(rng):
-    """Case parallelism over devices (the TPU-native analog of the
+    """Case parallelism over devices (the device analog of the
     reference's one-process-per-case pool): spreading cases over the
     8-device mesh must be BIT-identical per case to the single-device
     driver — placement does not change the math."""

@@ -138,10 +138,10 @@ def test_tail_runner_bit_identical_to_chunked(rng):
 
 
 def test_prepare_starts_bit_identical(rng):
-    """Device-resident pre-padded starts (prepare_starts, the multi-case
-    hoisting pattern) must produce bit-identical presence to passing the
-    raw numpy batch: _pad_starts' device passthrough changes where the
-    upload happens, never the agents."""
+    """Device-resident starts (prepare_starts, the multi-case hoisting
+    pattern) must produce bit-identical presence to passing the raw
+    numpy batch: the device passthrough changes where the upload
+    happens, never the agents."""
     from ssrs_tpu.agents import prepare_starts
 
     n = 1500
@@ -151,7 +151,7 @@ def test_prepare_starts_bit_identical(rng):
     p_np, s_np = simulate_presence_compacting(
         params, starts, jax.random.key(7), updraft=updraft,
         potential=potential, chunk=64, min_bucket=256)
-    starts_dev, valid_dev = prepare_starts(params, starts)
+    starts_dev, valid_dev = prepare_starts(starts)
     p_dev, s_dev = simulate_presence_compacting(
         params, starts_dev, jax.random.key(7), updraft=updraft,
         potential=potential, chunk=64, min_bucket=256, valid=valid_dev)

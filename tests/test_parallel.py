@@ -246,30 +246,3 @@ def test_collective_schedule_is_one_psum(rng):
     for op in ('all-gather', 'all-to-all', 'collective-permute',
                'reduce-scatter'):
         assert op_defs(op) == 0, op
-
-
-def test_fused_interpret_under_shard_map(rng):
-    """On real TPU meshes step auto now resolves to the fused Pallas
-    kernel INSIDE shard_map bodies (round-4 hybrid change); de-risk that
-    seam on the virtual mesh with the interpret-mode kernel: per-shard
-    bit-identity against the XLA step for the same keys."""
-    nrow, ncol = GRID
-    y = np.linspace(0, np.pi, nrow)[:, None]
-    x = np.linspace(0, 2 * np.pi, ncol)[None, :]
-    updraft = (1.0 + 0.8 * np.sin(x) * np.sin(y)).astype(np.float32)
-    potential = (np.linspace(1000., 0., nrow)[:, None]
-                 * np.ones((1, ncol))).astype(np.float32)
-    # one FUSED_BLK block per shard: the smallest size the kernel takes
-    n = 8 * 1024
-    starts = np.stack([rng.integers(3, 6, n), rng.integers(20, 30, n)],
-                      axis=1).astype(np.int32)
-    pf = _params(nsteps=48)._replace(step_impl='fused-interpret')
-    px = _params(nsteps=48)._replace(step_impl='xla')
-    p_f, s_f = simulate_presence_sharded(
-        pf, starts, jax.random.key(11), updraft=updraft,
-        potential=potential, chunk=16)
-    p_x, s_x = simulate_presence_sharded(
-        px, starts, jax.random.key(11), updraft=updraft,
-        potential=potential, chunk=16)
-    assert int(s_f) == int(s_x)
-    np.testing.assert_array_equal(np.asarray(p_f), np.asarray(p_x))

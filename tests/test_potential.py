@@ -523,9 +523,9 @@ def test_refined_solver_fuzz_directions(dirn, converges):
     dirn-0 fuzz. The seed-225 field lands multi-cell floating islands
     ON the east strip at this direction's anchoring — the class the
     refinement cannot converge (DESIGN.md "east-strip deflation
-    stall", limits) — so it is pinned as FLAGGED-for-fallback;
-    scripts/exp_stall_freq.py measures the class frequency (~20% of
-    dense random 64² speckle, 0 known realistic fields)."""
+    stall", limits) — so it is pinned as FLAGGED-for-fallback (the
+    class is ~20% of dense random 64² speckle fields and no known
+    realistic field, docs/DESIGN.md)."""
     rng = np.random.default_rng(int(dirn))
     w = rng.random((64, 64)).astype(np.float32)
     w[w < 0.5] = 0.0

@@ -149,16 +149,16 @@ def test_config_json_roundtrip(sim):
 
 
 def test_engine_knobs_roundtrip(tmp_path):
-    """The TPU engine knobs survive a JSON round trip, including the
+    """The engine knobs survive a JSON round trip, including the
     int-or-'auto' tail bucket (VERDICT r3 item 4)."""
     import json
     fpath = os.path.join(tmp_path, 'knobs.json')
-    cfg = Config(track_pkl_budget=123, track_step_impl='fused',
+    cfg = Config(track_pkl_budget=123, track_step_impl='xla',
                  track_presence_impl='matmul', track_tail_bucket='auto')
     cfg.to_json(fpath)
     back = Config.from_json(fpath)
     assert back.track_pkl_budget == 123
-    assert back.track_step_impl == 'fused'
+    assert back.track_step_impl == 'xla'
     assert back.track_presence_impl == 'matmul'
     assert back.track_tail_bucket == 'auto'
     cfg2 = Config(track_tail_bucket=2048)
@@ -238,7 +238,7 @@ def test_potential_fallback_size_cap(sim, monkeypatch):
 
 def test_fallback_cost_estimate_monotone():
     """The cost model reproduces its measured anchors and grows
-    superlinearly (scripts/exp_fallback_cost.py table)."""
+    superlinearly (the SuperLU cost table in potential/direct.py)."""
     from ssrs_tpu.potential.direct import fallback_cost_estimate
     s512, g512 = fallback_cost_estimate(512 * 512)
     assert abs(s512 - 4.9) < 1e-6 and abs(g512 - 0.94) < 1e-6
@@ -278,7 +278,7 @@ def test_batched_potential_prep_matches_single(sim):
 def test_potential_batch_cap_policy(sim):
     """Config.potential_batch: 0 = auto = OFF (round-5 reversal:
     sequential pipelined solves measured faster at every grid,
-    scripts/exp_batch_crossover.py), 1 = off, >1 = explicit opt-in
+    docs/DESIGN.md), 1 = off, >1 = explicit opt-in
     bounded by the memory envelope."""
     orig = sim.potential_batch
     try:

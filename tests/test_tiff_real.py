@@ -211,8 +211,8 @@ def test_not_a_tiff(tmp_path):
 
 
 def test_writer_roundtrip_through_tiffcore(tmp_path):
-    """Our Pillow-based writer's files decode identically through the
-    new reader (the layer-cache format round 1-3 wrote to disk)."""
+    """The layer-cache writer's files decode identically through the
+    reader."""
     from ssrs_tpu.data.geotiff import write_geotiff
     data = np.linspace(0, 1000, 48 * 64,
                        dtype=np.float32).reshape(48, 64)

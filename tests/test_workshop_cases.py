@@ -9,7 +9,7 @@ committed notebook outputs is not assertable; what IS asserted, per case:
 - the full pipeline runs end-to-end with the case's exact config values
   (only resolution, step cap, and output dir are scaled down for CPU CI;
   notebooks/workshop_cases.ipynb replays the same cases with figures at
-  200 m — set RES=100. there on a connected TPU host for full size),
+  200 m — set RES=100. there on a GPU host for full size),
 - every reference artifact exists with the reference naming scheme,
 - the presence mass drifts in the configured movement direction
   (golden *statistics*, robust to the synthetic terrain),
